@@ -72,7 +72,7 @@ def find_junctions(seq: str, min_prob: float = 0.90,
     both exceed min_prob — junctions the reference's novel-splicing
     maxent scan can discover.  Returns [(intron_start, intron_end)),
     0-based, intron = seq[s:e], excluding REF_TOXIC_JUNCTIONS."""
-    from gmap_gsnap_tpu.ops.maxent import splice_prob_np
+    from gmap_gsnap.ops.maxent import splice_prob_np
 
     codes = _codes(seq)
     sb = seq.encode()

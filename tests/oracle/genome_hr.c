@@ -5,7 +5,7 @@
  * This implementation re-derives the semantics from genome_hr.h and the
  * call sites (stage1hr.c, substring.c, splicetrie.c, stage2.c, indexdb.c)
  * so the reference binaries can be BUILT and used as a golden-output
- * oracle for the TPU framework's parity tests.  It is intentionally
+ * oracle for the framework's parity tests.  It is intentionally
  * scalar and simple (one genome character at a time) — correctness over
  * speed; it is NOT part of the shipped framework.
  *

@@ -5,7 +5,7 @@ pytest: SE substitutions, PE, known-splices + SNPs, and cmet, each
 byte-compared line-for-line against the reference binary on identical
 FASTQ inputs generated by bench_workloads (the bench generators).
 
-Default sizes keep the suite tractable; GMAP_TPU_RUN_SLOW=1 raises
+Default sizes keep the suite tractable; GMAP_RUN_SLOW=1 raises
 each to the full >=400-read adversarial size.
 """
 
@@ -28,7 +28,7 @@ needs_oracle = pytest.mark.skipif(
     reason="reference oracle binaries not built",
 )
 
-SLOW = bool(os.environ.get("GMAP_TPU_RUN_SLOW"))
+SLOW = bool(os.environ.get("GMAP_RUN_SLOW"))
 N_SE = 400 if SLOW else 160
 N_PE = 400 if SLOW else 128
 N_KS = 400 if SLOW else 160
@@ -46,7 +46,7 @@ def _env():
 
 def _run_ours(args):
     return subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", *args],
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", *args],
         capture_output=True, text=True, env=_env(), check=True).stdout
 
 
@@ -102,7 +102,7 @@ def _copy_db(tmp_path):
 @needs_oracle
 def test_adversarial_known_snp(tmp_path):
     import bench_workloads as bw
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     seq = _seq()
     gdb, dbdir = _copy_db(tmp_path)
@@ -111,7 +111,7 @@ def test_adversarial_known_snp(tmp_path):
     iit_from_text(ss_txt).write(str(dbdir / "chr17test.maps" / "ss.iit"))
     iit_from_text(snp_txt).write(str(dbdir / "chr17test.maps" / "snps.iit"))
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.snpindex",
+        [sys.executable, "-m", "gmap_gsnap.cli.snpindex",
          "-D", str(gdb), "-d", "chr17test", "-v", "snps",
          str(dbdir / "chr17test.maps" / "snps.iit")],
         capture_output=True, text=True, env=_env(), check=True)
@@ -132,7 +132,7 @@ def test_adversarial_cmet(tmp_path):
     seq = _seq()
     gdb, dbdir = _copy_db(tmp_path)
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.cmetindex",
+        [sys.executable, "-m", "gmap_gsnap.cli.cmetindex",
          "-D", str(gdb), "-d", "chr17test"],
         capture_output=True, text=True, env=_env(), check=True)
     rng = np.random.default_rng(5)

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 
 import dynprog_oracle as oracle
-from gmap_gsnap_tpu.ops import dynprog as dp
+from gmap_gsnap.ops import dynprog as dp
 
 
 def _rand_problem(rng, M_max=24, N_max=32, related=True):

@@ -8,16 +8,16 @@ import numpy as np
 import pytest
 
 
-@pytest.mark.skipif(not os.environ.get("GMAP_TPU_RUN_SLOW"),
+@pytest.mark.skipif(not os.environ.get("GMAP_RUN_SLOW"),
                     reason="~4 min: k=15 build is 4^15-entry offsets; "
-                           "set GMAP_TPU_RUN_SLOW=1 (verified on 16 and "
+                           "set GMAP_RUN_SLOW=1 (verified on 16 and "
                            "64 Mbp synthetic genomes)")
 def test_k15_gamma_roundtrip_large(tmp_path):
     """Blocked Elias-gamma offsets at k=15/basesize=12 survive a
     write/read roundtrip on a synthetic 16 Mbp genome (the README
     k=15 sizing path; larger genomes differ only in runtime — a
     64 Mbp run was verified once out-of-suite)."""
-    from gmap_gsnap_tpu.db import indexdb
+    from gmap_gsnap.db import indexdb
 
     rng = np.random.default_rng(11)
     G = 16_000_000
@@ -42,9 +42,9 @@ def test_se_pipeline_without_genome_string(tmp_path):
     whole-genome Python str (LazyGenomeStr windows only)."""
     import io
 
-    from gmap_gsnap_tpu.align import runner as runner_mod
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.db.datadir import GenomeDB, LazyGenomeStr
+    from gmap_gsnap.align import runner as runner_mod
+    from gmap_gsnap.db import build
+    from gmap_gsnap.db.datadir import GenomeDB, LazyGenomeStr
 
     dbdir = build.build_db(["/root/reference/tests/ss.chr17test"],
                            "chr17test", str(tmp_path), k=12)
@@ -75,8 +75,8 @@ def test_overflow_rescue_lane(tmp_path):
     import io
     import subprocess
 
-    from gmap_gsnap_tpu.align import gsnap_se, runner as runner_mod
-    from gmap_gsnap_tpu.db.datadir import GenomeDB
+    from gmap_gsnap.align import gsnap_se, runner as runner_mod
+    from gmap_gsnap.db.datadir import GenomeDB
 
     if not os.path.isdir("/tmp/refbuild/trytest/gdb"):
         pytest.skip("oracle DB not built")
@@ -141,9 +141,9 @@ def test_overflow_rescue_lane_pe(tmp_path):
     import io
     import subprocess
 
-    from gmap_gsnap_tpu.align import runner as runner_mod
-    from gmap_gsnap_tpu.db.datadir import GenomeDB
-    from gmap_gsnap_tpu.utils import dna
+    from gmap_gsnap.align import runner as runner_mod
+    from gmap_gsnap.db.datadir import GenomeDB
+    from gmap_gsnap.utils import dna
 
     if not os.path.isdir("/tmp/refbuild/trytest/gdb"):
         pytest.skip("oracle DB not built")

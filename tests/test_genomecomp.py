@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from gmap_gsnap_tpu.db import genomecomp
-from gmap_gsnap_tpu.io import fasta
-from gmap_gsnap_tpu.utils import dna
+from gmap_gsnap.db import genomecomp
+from gmap_gsnap.io import fasta
+from gmap_gsnap.utils import dna
 
 
 def test_genomecomp_byte_parity(ref_tests, tmp_path):

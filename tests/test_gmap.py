@@ -6,12 +6,12 @@ import re
 import numpy as np
 import pytest
 
-from gmap_gsnap_tpu.align import gmap as gmap_mod
-from gmap_gsnap_tpu.align import translation as tr
-from gmap_gsnap_tpu.db import build
-from gmap_gsnap_tpu.db.datadir import GenomeDB
-from gmap_gsnap_tpu.io import fasta, gmap_out
-from gmap_gsnap_tpu.utils import dna
+from gmap_gsnap.align import gmap as gmap_mod
+from gmap_gsnap.align import translation as tr
+from gmap_gsnap.db import build
+from gmap_gsnap.db.datadir import GenomeDB
+from gmap_gsnap.io import fasta, gmap_out
+from gmap_gsnap.utils import dna
 
 
 @pytest.fixture(scope="module")
@@ -127,7 +127,7 @@ def test_gmap_samse_oracle_parity(chr17db, ref_tests, tmp_path):
     repo = pathlib.Path(__file__).resolve().parent.parent
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(repo))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", "-D", odb,
+        [sys.executable, "-m", "gmap_gsnap.cli.gmap", "-D", odb,
          "-d", "chr17test", "-f", "samse", str(fa)],
         capture_output=True, text=True, env=env, check=True,
     ).stdout
@@ -144,7 +144,7 @@ def test_align_golden_byte_parity(ref_tests, tmp_path):
     repo = pathlib.Path(__file__).resolve().parent.parent
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(repo))
     out = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", "-A", "-g",
+        [sys.executable, "-m", "gmap_gsnap.cli.gmap", "-A", "-g",
          str(ref_tests / "ss.chr17test"), str(ref_tests / "ss.her2")],
         capture_output=True, text=True, env=env, check=True,
     ).stdout
@@ -187,7 +187,7 @@ def test_gmap_formats_oracle_parity(ref_tests):
             capture_output=True, text=True, check=True,
         ).stdout
         mine = subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", "-D", odb,
+            [sys.executable, "-m", "gmap_gsnap.cli.gmap", "-D", odb,
              "-d", "chr17test", *opts, *inputs],
             capture_output=True, text=True, env=env, check=True,
         ).stdout
@@ -228,7 +228,7 @@ def test_summary_and_minus_strand_formats(ref_tests, tmp_path):
             capture_output=True, text=True, check=True,
         ).stdout
         mine = subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", "-D", odb,
+            [sys.executable, "-m", "gmap_gsnap.cli.gmap", "-D", odb,
              "-d", "chr17test", *opts, inp],
             capture_output=True, text=True, env=env, check=True,
         ).stdout
@@ -273,7 +273,7 @@ def test_gff3_match_and_coords_formats(ref_tests, tmp_path):
                 capture_output=True, text=True, check=True,
             ).stdout
             mine = subprocess.run(
-                [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", "-D", odb,
+                [sys.executable, "-m", "gmap_gsnap.cli.gmap", "-D", odb,
                  "-d", "chr17test", *opts, inp],
                 capture_output=True, text=True, env=env, check=True,
             ).stdout

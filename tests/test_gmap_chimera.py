@@ -33,7 +33,7 @@ def _run_both(fa, args):
         [ORACLE, "-D", ORACLE_DB, "-d", "chr17test", *args, str(fa)],
         capture_output=True, text=True, check=True).stdout
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gmap", "-D", ORACLE_DB,
          "-d", "chr17test", *args, str(fa)],
         capture_output=True, text=True, env=env, check=True).stdout
     return ref, mine

@@ -47,7 +47,7 @@ def test_intron_with_indel_near_junction(tmp_path):
         [ORACLE, "-D", ORACLE_DB, "-d", "chr17test", "-f", "samse", str(fa)],
         capture_output=True, text=True, check=True).stdout
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gmap", "-D", ORACLE_DB,
          "-d", "chr17test", "-f", "samse", str(fa)],
         capture_output=True, text=True, env=env, check=True).stdout
     # at least one alignment must show intron + deletion in one CIGAR

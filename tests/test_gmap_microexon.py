@@ -53,7 +53,7 @@ def test_microexon_parity(tmp_path):
             [ORACLE, "-D", ORACLE_DB, "-d", "chr17test", *args, str(fa)],
             capture_output=True, text=True, check=True).stdout
         mine = subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", "-D",
+            [sys.executable, "-m", "gmap_gsnap.cli.gmap", "-D",
              ORACLE_DB, "-d", "chr17test", *args, str(fa)],
             capture_output=True, text=True, env=env, check=True).stdout
         assert mine.splitlines() == ref.splitlines(), args

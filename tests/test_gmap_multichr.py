@@ -22,7 +22,7 @@ needs_oracle = pytest.mark.skipif(
 
 @pytest.fixture(scope="module")
 def twochr(tmp_path_factory):
-    from gmap_gsnap_tpu.db import build
+    from gmap_gsnap.db import build
 
     tmp = tmp_path_factory.mktemp("twochr")
     seq = "".join(l.strip() for l in open(FIXTURE)
@@ -56,7 +56,7 @@ def test_multichr_format_parity(twochr, fmt):
         capture_output=True, text=True, check=True).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", "-D", dbdir,
+        [sys.executable, "-m", "gmap_gsnap.cli.gmap", "-D", dbdir,
          "-d", "twochr", *fmt, qfa],
         capture_output=True, text=True, env=env, check=True).stdout
     assert mine.splitlines() == ref.splitlines(), fmt
@@ -78,6 +78,6 @@ def test_chrsubset(twochr, tmp_path):
             check=True).stdout
         env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
         mine = subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap"] + args + [q],
+            [sys.executable, "-m", "gmap_gsnap.cli.gmap"] + args + [q],
             capture_output=True, text=True, env=env, check=True).stdout
         assert ref.splitlines() == mine.splitlines(), sub

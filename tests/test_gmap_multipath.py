@@ -21,7 +21,7 @@ needs_oracle = pytest.mark.skipif(
 def _dup_db(tmp_path):
     """Synthetic 80 kbp genome with a 300 bp segment present at 10050
     (original), 50000 (2 mismatches) and 60000 (exact copy)."""
-    from gmap_gsnap_tpu.db import build
+    from gmap_gsnap.db import build
 
     rng = np.random.default_rng(3)
     bases = np.array(list("ACGT"))
@@ -54,7 +54,7 @@ def _run_ref(dbdir, qfa, *flags):
 def _run_mine(dbdir, qfa, *flags):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     return subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", "-D", dbdir,
+        [sys.executable, "-m", "gmap_gsnap.cli.gmap", "-D", dbdir,
          "-d", "dupdb", *flags, qfa],
         capture_output=True, text=True, env=env, check=True).stdout
 
@@ -93,7 +93,7 @@ def test_multipath_alignment_blocks(tmp_path):
 
 def test_rank_paths_winnow_and_mapq():
     """Unit: goodness winnow (best-3), overlap elimination, mapq."""
-    from gmap_gsnap_tpu.align.gmap import (Exon, Path, path_mapqs,
+    from gmap_gsnap.align.gmap import (Exon, Path, path_mapqs,
                                            rank_paths)
 
     def mk(gs, matches, mm, watsonp=True):

@@ -29,7 +29,7 @@ def _env():
 
 def _ours(*args):
     return subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap", *args],
+        [sys.executable, "-m", "gmap_gsnap.cli.gmap", *args],
         capture_output=True, text=True, env=_env(), check=True,
     ).stdout
 
@@ -186,7 +186,7 @@ def test_mapexons(tmp_path):
     shutil.copytree(f"{ORACLE_DB}/chr17test", dbdir)
     mapsdir = dbdir / "chr17test.maps"
     mapsdir.mkdir(exist_ok=True)
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     iit_from_text(
         ">g1 chr17test:109700..110200 first\n"

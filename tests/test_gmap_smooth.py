@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from gmap_gsnap_tpu.align import gmap as gmap_mod
+from gmap_gsnap.align import gmap as gmap_mod
 
 
 def _mk(gstr: str, qparts):

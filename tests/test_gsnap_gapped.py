@@ -22,9 +22,9 @@ needs_oracle = pytest.mark.skipif(
 
 @pytest.fixture(scope="module")
 def db():
-    from gmap_gsnap_tpu.align import gsnap_se
-    from gmap_gsnap_tpu.db import build, indexdb
-    from gmap_gsnap_tpu.ops import genome as genome_ops
+    from gmap_gsnap.align import gsnap_se
+    from gmap_gsnap.db import build, indexdb
+    from gmap_gsnap.ops import genome as genome_ops
 
     g = build.load_genome_fasta([FIXTURE])
     genome = genome_ops.GenomeArrays.from_codes(g.codes, g.flags, g.chr_ends)
@@ -37,8 +37,8 @@ def db():
 def _align(db, seqs, novelsplicing=True):
     import jax.numpy as jnp
 
-    from gmap_gsnap_tpu.align import gsnap_gapped
-    from gmap_gsnap_tpu.utils import dna
+    from gmap_gsnap.align import gsnap_gapped
+    from gmap_gsnap.utils import dna
 
     genome, index, _, _ = db
     lmax = max(len(s) for s in seqs)
@@ -60,7 +60,7 @@ def _align(db, seqs, novelsplicing=True):
 
 
 def test_middle_deletions(db):
-    from gmap_gsnap_tpu.align.gsnap_gapped import KIND_DEL
+    from gmap_gsnap.align.gsnap_gapped import KIND_DEL
 
     _, _, seq, _ = db
     seqs, expect = [], []
@@ -79,7 +79,7 @@ def test_middle_deletions(db):
 
 
 def test_middle_insertions(db):
-    from gmap_gsnap_tpu.align.gsnap_gapped import KIND_INS
+    from gmap_gsnap.align.gsnap_gapped import KIND_INS
 
     _, _, seq, _ = db
     rng = np.random.default_rng(3)
@@ -100,9 +100,9 @@ def test_middle_insertions(db):
 def test_novel_splice_detection(db):
     """Reads spanning a junction between strong maxent donor/acceptor
     sites are recovered with the exact splice point on both strands."""
-    from gmap_gsnap_tpu.align.gsnap_gapped import KIND_SPLICE
-    from gmap_gsnap_tpu.ops import maxent
-    from gmap_gsnap_tpu.utils import dna
+    from gmap_gsnap.align.gsnap_gapped import KIND_SPLICE
+    from gmap_gsnap.ops import maxent
+    from gmap_gsnap.utils import dna
 
     _, _, seq, g = db
     pos = np.arange(100, 20000)
@@ -126,7 +126,7 @@ def test_novel_splice_detection(db):
 
 def test_no_splicing_by_default(db):
     """novelsplicing=False (gsnap default) must not emit splice hits."""
-    from gmap_gsnap_tpu.ops import maxent
+    from gmap_gsnap.ops import maxent
 
     _, _, seq, g = db
     pos = np.arange(100, 20000)
@@ -146,8 +146,8 @@ def test_gapped_sam_parity(tmp_path):
     GMAP-rescue pass (clean flanks, strong maxent junctions)."""
     import random
 
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.ops import maxent
+    from gmap_gsnap.db import build
+    from gmap_gsnap.ops import maxent
 
     random.seed(11)
     g = build.load_genome_fasta([FIXTURE])
@@ -201,7 +201,7 @@ def test_gapped_sam_parity(tmp_path):
     ).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
          "-d", "chr17test", "-N1", str(fq)],
         capture_output=True, text=True, env=env, check=True,
     ).stdout

@@ -37,7 +37,7 @@ def _dup_db(tmp_path):
                 f.write(s[i : i + 60] + "\n")
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap_build", "-D",
+        [sys.executable, "-m", "gmap_gsnap.cli.gmap_build", "-D",
          str(tmp_path / "db"), "-d", "dup", str(fa)],
         capture_output=True, text=True, env=env, check=True)
     return chr_a, env
@@ -45,12 +45,12 @@ def _dup_db(tmp_path):
 
 def _genes_iit(tmp_path, env, gtf: str, name="genes"):
     out = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gtf_genes"],
+        [sys.executable, "-m", "gmap_gsnap.cli.gtf_genes"],
         input=gtf, capture_output=True, text=True, env=env, check=True,
     ).stdout
     iit = tmp_path / f"{name}.iit"
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.iit_store", "-o",
+        [sys.executable, "-m", "gmap_gsnap.cli.iit_store", "-o",
          str(iit)],
         input=out, capture_output=True, text=True, env=env, check=True)
     return iit
@@ -63,7 +63,7 @@ def _run_both(tmp_path, env, extra, fastqs):
         capture_output=True, text=True, check=True,
     ).stdout
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D",
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D",
          str(tmp_path / "db"), "-d", "dup", "-A", "sam"]
         + extra + [str(f) for f in fastqs],
         capture_output=True, text=True, env=env, check=True,
@@ -135,7 +135,7 @@ def test_tally_resolution_se(tmp_path):
     text = f">t1 chrA:11001..11150\n{body}\n"
     iit = tmp_path / "tally.iit"
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.iit_store", "-o",
+        [sys.executable, "-m", "gmap_gsnap.cli.iit_store", "-o",
          str(iit)],
         input=text, capture_output=True, text=True, env=env, check=True)
     read = chr_a[11000:11100]
@@ -157,7 +157,7 @@ def test_runlength_resolution_se(tmp_path):
     text = ">r1 chrA:10900..11200\n10\n"
     iit = tmp_path / "runlength.iit"
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.iit_store", "-o",
+        [sys.executable, "-m", "gmap_gsnap.cli.iit_store", "-o",
          str(iit)],
         input=text, capture_output=True, text=True, env=env, check=True)
     read = chr_a[11000:11100]

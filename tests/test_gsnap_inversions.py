@@ -18,7 +18,7 @@ needs_oracle = pytest.mark.skipif(
 
 
 def _mine():
-    from gmap_gsnap_tpu.ops import maxent
+    from gmap_gsnap.ops import maxent
 
     seq = "".join(
         l.strip() for l in open("/root/reference/tests/ss.chr17test")
@@ -89,7 +89,7 @@ def test_inversion_parity(tmp_path):
         ).stdout
         my_args = ["-A", "sam"] if fmt_args else ["-A", "gsnap"]
         mine = subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D",
+            [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D",
              ORACLE_DB, "-d", "chr17test", "-N1", *my_args, str(fq)],
             capture_output=True, text=True, env=env, check=True,
         ).stdout

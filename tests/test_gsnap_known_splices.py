@@ -65,7 +65,7 @@ def _env():
 
 def _run_ours(args):
     return subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", *args],
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", *args],
         capture_output=True, text=True, env=_env(), check=True,
     ).stdout
 
@@ -93,7 +93,7 @@ def test_known_splicesites_parity(tmp_path):
         f">j.d chr17test:{istart}..{istart + 1} donor\n"
         f">j.a chr17test:{iend}..{iend + 1} acceptor\n"
     )
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     iit_from_text(ss_txt).write(str(dbdir / "chr17test.maps" / "ss.iit"))
 
@@ -129,7 +129,7 @@ def test_config4_snps_plus_known_splices(tmp_path):
         ref = seq[pos - 1]
         snp_lines.append(f">rs{i} chr17test:{pos} {ref}{flip[ref]}")
 
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     iit_from_text("\n".join(snp_lines) + "\n").write(
         str(dbdir / "chr17test.maps" / "snps.iit"))
@@ -140,7 +140,7 @@ def test_config4_snps_plus_known_splices(tmp_path):
     iit_from_text(ss_txt).write(str(dbdir / "chr17test.maps" / "ss.iit"))
 
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.snpindex",
+        [sys.executable, "-m", "gmap_gsnap.cli.snpindex",
          "-D", str(gdb), "-d", "chr17test", "-v", "snps",
          str(dbdir / "chr17test.maps" / "snps.iit")],
         capture_output=True, text=True, env=_env(), check=True,
@@ -177,7 +177,7 @@ def test_splicedists_obs_window_parity(tmp_path):
     d_near = iend - istart            # real junction distance
     far = iend + 3000                 # a second acceptor well beyond
 
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     reads = [
         # continues at the NEAR acceptor (within obs distance)
@@ -216,7 +216,7 @@ def test_introns_format_map(tmp_path):
     seq = _genome_seq()
     istart, iend = _low_prob_junction(seq)
 
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     # gtf_introns emits chr:ends[i]..starts[i+1] — LAST EXON BASE to
     # next exon's FIRST base — so the derived donor (low) and acceptor
@@ -270,7 +270,7 @@ def test_ambig_splice_noclip(tmp_path):
         f">j.a chr17test:{iend}..{iend + 1} acceptor\n"
         f">j.a2 chr17test:{iend2}..{iend2 + 1} acceptor\n"
     )
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     iit_from_text(ss_txt).write(str(dbdir / "chr17test.maps" / "ss.iit"))
 

@@ -24,7 +24,7 @@ def _run(args, fq):
     ).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
          "-d", "chr17test", "-A", "gsnap", *args, str(fq)],
         capture_output=True, text=True, env=env, check=True,
     ).stdout
@@ -102,7 +102,7 @@ def test_native_known_splicesites_labels(tmp_path):
         if 100 < e + 2 - s < 2000:
             break
     istart, iend = p + s, p + e + 2
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     maps = gdb / "chr17test" / "chr17test.maps"
     maps.mkdir(exist_ok=True)
@@ -122,7 +122,7 @@ def test_native_known_splicesites_labels(tmp_path):
     ).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", str(gdb),
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", str(gdb),
          "-d", "chr17test", "-s", "ss", "-A", "gsnap", str(fq)],
         capture_output=True, text=True, env=env, check=True,
     ).stdout
@@ -157,7 +157,7 @@ def test_native_paired_end_parity(tmp_path):
     ).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
          "-d", "chr17test", "-A", "gsnap", str(fq1), str(fq2)],
         capture_output=True, text=True, env=env, check=True,
     ).stdout
@@ -212,7 +212,7 @@ def test_native_pe_halfmapping_rescue(tmp_path):
         ).stdout
         env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
         mine = subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+            [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
              "-d", "chr17test", "-A", fmt, str(fq1), str(fq2)],
             capture_output=True, text=True, env=env, check=True,
         ).stdout
@@ -251,7 +251,7 @@ def test_distant_splicing_translocations(tmp_path):
     ).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
          "-d", "chr17test", "-N1", "-A", "sam", str(fq)],
         capture_output=True, text=True, env=env, check=True,
     ).stdout
@@ -278,7 +278,7 @@ def test_distant_cross_chromosome_translocation(tmp_path):
             f.write(seq[i : i + 60] + "\n")
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap_build", "-D",
+        [sys.executable, "-m", "gmap_gsnap.cli.gmap_build", "-D",
          str(tmp_path / "db"), "-d", "two", str(fa)],
         capture_output=True, text=True, env=env, check=True)
     r = seq[50:94] + seq[198434:198490]   # donor chrA -> acceptor chrB
@@ -292,7 +292,7 @@ def test_distant_cross_chromosome_translocation(tmp_path):
             capture_output=True, text=True, check=True,
         ).stdout
         mine = subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D",
+            [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D",
              str(tmp_path / "db"), "-d", "two", "-N1", "-A", fmt, str(fq)],
             capture_output=True, text=True, env=env, check=True,
         ).stdout
@@ -339,7 +339,7 @@ def test_end_trims_terminals_and_rescue_ladder(tmp_path):
         ).stdout
         env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
         mine = subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+            [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
              "-d", "chr17test", "-A", fmt, str(fq)],
             capture_output=True, text=True, env=env, check=True,
         ).stdout
@@ -380,7 +380,7 @@ def test_end_indels_and_minus_indel_display(tmp_path):
         ).stdout
         env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
         mine = subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+            [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
              "-d", "chr17test", "-A", fmt, str(fq)],
             capture_output=True, text=True, env=env, check=True,
         ).stdout
@@ -409,7 +409,7 @@ def test_native_snp_display_modes(tmp_path):
     ).upper()
     flip = {"A": "G", "G": "A", "C": "T", "T": "C"}
     snp_positions = [15050, 15070, 25040]  # 1-based
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     iit_from_text("".join(
         f">rs{i} chr17test:{p} {seq[p - 1]}{flip[seq[p - 1]]}\n"
@@ -417,7 +417,7 @@ def test_native_snp_display_modes(tmp_path):
     )).write(str(maps / "snps.iit"))
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.snpindex",
+        [sys.executable, "-m", "gmap_gsnap.cli.snpindex",
          "-D", str(gdb), "-d", "chr17test", "-v", "snps",
          str(maps / "snps.iit")],
         capture_output=True, text=True, env=env, check=True)
@@ -440,7 +440,7 @@ def test_native_snp_display_modes(tmp_path):
              *extra, str(fq)],
             capture_output=True, text=True, check=True).stdout
         mine = subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", str(gdb),
+            [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", str(gdb),
              "-d", "chr17test", "-A", "gsnap", "-v", "snps", *extra, str(fq)],
             capture_output=True, text=True, env=env, check=True).stdout
         assert ref.splitlines() == mine.splitlines(), extra

@@ -38,7 +38,7 @@ def _run_both(extra, fastqs):
     ).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
          "-d", "chr17test"] + extra + [str(f) for f in fastqs],
         capture_output=True, text=True, env=env, check=True,
     ).stdout
@@ -104,8 +104,8 @@ def test_localsplicedist(tmp_path):
     splice must be rejected at -w 1000."""
     import numpy as np
 
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.ops import maxent
+    from gmap_gsnap.db import build
+    from gmap_gsnap.ops import maxent
 
     g = build.load_genome_fasta([FIXTURE])
     seq = _genome_seq()
@@ -148,7 +148,7 @@ def test_trim_mismatch_score(tmp_path):
 
 
 def test_sam_use_0M_insertion():
-    from gmap_gsnap_tpu.io import sam
+    from gmap_gsnap.io import sam
 
     assert sam.insert_0M("50M3I47M") == "50M3I47M"
     assert sam.insert_0M("10M3I2D85M") == "10M3I0M2D85M"
@@ -255,8 +255,8 @@ def test_merge_distant_samechr(tmp_path):
     as one spliced record instead of two translocation halves."""
     import numpy as np
 
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.ops import maxent
+    from gmap_gsnap.db import build
+    from gmap_gsnap.ops import maxent
 
     g = build.load_genome_fasta([FIXTURE])
     seq = _genome_seq()
@@ -303,9 +303,9 @@ def test_snpsdir_splicingdir(tmp_path):
             moved = True
     spldir = tmp_path / "spl"
     spldir.mkdir()
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
-    from gmap_gsnap_tpu.db import build as _b
-    from gmap_gsnap_tpu.ops import maxent
+    from gmap_gsnap.db.iit_text import iit_from_text
+    from gmap_gsnap.db import build as _b
+    from gmap_gsnap.ops import maxent
     import numpy as np
 
     g = _b.load_genome_fasta([FIXTURE])
@@ -330,7 +330,7 @@ def test_snpsdir_splicingdir(tmp_path):
         capture_output=True, text=True, check=True).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap"] + args
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap"] + args
         + [str(fq)], capture_output=True, text=True, env=env,
         check=True).stdout
     assert ([l for l in ref.splitlines() if not l.startswith("@")]

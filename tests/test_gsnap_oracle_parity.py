@@ -64,7 +64,7 @@ def test_se_sam_parity(tmp_path):
         [
             sys.executable,
             "-m",
-            "gmap_gsnap_tpu.cli.gsnap",
+            "gmap_gsnap.cli.gsnap",
             "-D",
             ORACLE_DB,
             "-d",

@@ -34,10 +34,10 @@ def test_pairtype_classification():
     """Device pairing grid matches Stage3_determine_pairtype rules."""
     import jax.numpy as jnp
 
-    from gmap_gsnap_tpu.align import gsnap_pe, gsnap_se
-    from gmap_gsnap_tpu.db import build, indexdb
-    from gmap_gsnap_tpu.ops import genome as genome_ops
-    from gmap_gsnap_tpu.utils import dna
+    from gmap_gsnap.align import gsnap_pe, gsnap_se
+    from gmap_gsnap.db import build, indexdb
+    from gmap_gsnap.ops import genome as genome_ops
+    from gmap_gsnap.utils import dna
 
     g = build.load_genome_fasta([FIXTURE])
     genome = genome_ops.GenomeArrays.from_codes(g.codes, g.flags, g.chr_ends)
@@ -84,8 +84,8 @@ def test_pairtype_classification():
 def test_pe_novel_splicing_parity(tmp_path):
     """Config 3: paired-end with novel splicing (-N1) — read 1 spans a
     strong-maxent junction, read 2 is a plain genomic mate."""
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.ops import maxent
+    from gmap_gsnap.db import build
+    from gmap_gsnap.ops import maxent
 
     g = build.load_genome_fasta([FIXTURE])
     seq = _genome_seq()
@@ -123,7 +123,7 @@ def test_pe_novel_splicing_parity(tmp_path):
     ).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
          "-d", "chr17test", "-N1", str(fq1), str(fq2)],
         capture_output=True, text=True, env=env, check=True,
     ).stdout
@@ -178,7 +178,7 @@ def test_pe_sam_parity(tmp_path):
     ).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
          "-d", "chr17test", str(fq1), str(fq2)],
         capture_output=True, text=True, env=env, check=True,
     ).stdout

@@ -6,11 +6,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from gmap_gsnap_tpu.align import gsnap_se, runner
-from gmap_gsnap_tpu.db import build, indexdb
-from gmap_gsnap_tpu.io import sam
-from gmap_gsnap_tpu.ops import genome as genome_ops
-from gmap_gsnap_tpu.utils import dna
+from gmap_gsnap.align import gsnap_se, runner
+from gmap_gsnap.db import build, indexdb
+from gmap_gsnap.io import sam
+from gmap_gsnap.ops import genome as genome_ops
+from gmap_gsnap.utils import dna
 
 
 @pytest.fixture(scope="module")
@@ -137,7 +137,7 @@ def test_seed_rank_map_packed_vs_unpacked():
     import jax.numpy as jnp
     import numpy as np
 
-    from gmap_gsnap_tpu.align import gsnap_se as gs
+    from gmap_gsnap.align import gsnap_se as gs
 
     rng = np.random.default_rng(3)
     nolig = 4 ** 6

@@ -57,7 +57,7 @@ def _junctions(seq):
 
 
 def _make_db(tmp_path, ss_text):
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     dbdir = tmp_path / "gdb" / "chr17test"
     shutil.copytree(f"{ORACLE_DB}/chr17test", dbdir,
@@ -76,7 +76,7 @@ def _write_fq(path, reads):
 def _run_mine(gdb, fq):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     out = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", str(gdb),
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", str(gdb),
          "-d", "chr17test", "-s", "ss", "--format=sam", str(fq)],
         capture_output=True, text=True, env=env, check=True).stdout
     return [l for l in out.splitlines() if not l.startswith("@")]

@@ -28,7 +28,7 @@ def _genome_codes():
 
 
 def _good_sites(codes, kind, thr=0.95):
-    from gmap_gsnap_tpu.ops import maxent
+    from gmap_gsnap.ops import maxent
 
     pos = np.arange(40, len(codes) - 40)
     p = maxent.splice_prob_np(codes, pos, kind)
@@ -84,7 +84,7 @@ def test_shortexon_sam_parity(tmp_path):
     ).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
          "-d", "chr17test", "-N1", str(fq)],
         capture_output=True, text=True, env=env, check=True,
     ).stdout

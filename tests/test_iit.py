@@ -2,8 +2,8 @@
 golden .iit, iit_get output parity, and dump roundtrip (reference
 tests/iit.test.in)."""
 
-from gmap_gsnap_tpu.db.iit import IIT, Interval
-from gmap_gsnap_tpu.db.iit_text import iit_from_text, iit_get_text
+from gmap_gsnap.db.iit import IIT, Interval
+from gmap_gsnap.db.iit_text import iit_from_text, iit_get_text
 
 
 def test_read_reference_written_iit(ref_tests):

@@ -3,9 +3,9 @@ plus gamma offsets roundtrip."""
 
 import numpy as np
 
-from gmap_gsnap_tpu.db import build, indexdb
-from gmap_gsnap_tpu.io import fasta
-from gmap_gsnap_tpu.utils import dna
+from gmap_gsnap.db import build, indexdb
+from gmap_gsnap.io import fasta
+from gmap_gsnap.utils import dna
 
 
 def _chr17(ref_tests):

@@ -25,9 +25,9 @@ def _rc(s):
 
 @pytest.fixture(scope="module")
 def runner(tmp_path_factory):
-    from gmap_gsnap_tpu.align import runner as runner_mod
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.db.datadir import GenomeDB
+    from gmap_gsnap.align import runner as runner_mod
+    from gmap_gsnap.db import build
+    from gmap_gsnap.db.datadir import GenomeDB
 
     tmp = tmp_path_factory.mktemp("db")
     dbdir = build.build_db([FIXTURE], "chr17test", str(tmp), k=12)
@@ -38,8 +38,8 @@ def runner(tmp_path_factory):
 def test_trim_ends_device_matches_host():
     import jax.numpy as jnp
 
-    from gmap_gsnap_tpu.align import gsnap_gapped
-    from gmap_gsnap_tpu.align.runner import trim_ends
+    from gmap_gsnap.align import gsnap_gapped
+    from gmap_gsnap.align.runner import trim_ends
 
     rng = np.random.default_rng(3)
     L = 100
@@ -60,7 +60,7 @@ def test_trim_ends_device_matches_host():
 def test_device_gate_matches_host_gate(runner):
     """Randomized reads: every row the device gate clears must also be
     cleared by the host gate logic, and vice versa."""
-    from gmap_gsnap_tpu.align.runner import Record
+    from gmap_gsnap.align.runner import Record
 
     seq = _genome_seq()
     rng = np.random.default_rng(17)
@@ -115,8 +115,8 @@ def test_lane_flag_filtering_byte_identical(runner):
     flags may only SKIP provably-empty work."""
     import io
 
-    from gmap_gsnap_tpu.align import runner as runner_mod
-    from gmap_gsnap_tpu.align.runner import Record
+    from gmap_gsnap.align import runner as runner_mod
+    from gmap_gsnap.align.runner import Record
 
     seq = _genome_seq()
     rng = np.random.default_rng(41)

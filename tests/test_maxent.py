@@ -11,11 +11,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from gmap_gsnap_tpu.db import genomecomp
-from gmap_gsnap_tpu.io import fasta
-from gmap_gsnap_tpu.ops import genome as genome_ops
-from gmap_gsnap_tpu.ops import maxent
-from gmap_gsnap_tpu.utils import dna
+from gmap_gsnap.db import genomecomp
+from gmap_gsnap.io import fasta
+from gmap_gsnap.ops import genome as genome_ops
+from gmap_gsnap.ops import maxent
+from gmap_gsnap.utils import dna
 
 ORACLE_DIR = pathlib.Path(__file__).parent / "oracle"
 REF_SRC = pathlib.Path("/root/reference/src")

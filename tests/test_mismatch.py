@@ -6,9 +6,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from gmap_gsnap_tpu.ops import genome as genome_ops
-from gmap_gsnap_tpu.ops import mismatch as mm_ops
-from gmap_gsnap_tpu.utils import dna
+from gmap_gsnap.ops import genome as genome_ops
+from gmap_gsnap.ops import mismatch as mm_ops
+from gmap_gsnap.utils import dna
 
 
 @pytest.fixture(scope="module")

@@ -43,7 +43,7 @@ def _make_fq(path, n=20, seed=5):
 def _run(args, **kw):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     return subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", ORACLE_DB,
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", ORACLE_DB,
          "-d", "chr17test", *args],
         capture_output=True, text=True, env=env, check=True, **kw)
 
@@ -145,14 +145,14 @@ def test_gmapindex_compress_uncompress(tmp_path):
     raw.write_text(_genome_seq()[:100000] + "NNXN" + _genome_seq()[:37])
     env = dict(os.environ, PYTHONPATH=str(REPO))
     mine = sp.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmapindex", "-C",
+        [sys.executable, "-m", "gmap_gsnap.cli.gmapindex", "-C",
          str(raw)], capture_output=True, env=env, check=True).stdout
     if os.path.exists("/tmp/refbuild/src/gmapindex"):
         ref = sp.run(["/tmp/refbuild/src/gmapindex", "-C", str(raw)],
                      capture_output=True, check=True).stdout
         assert mine == ref
     back = sp.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmapindex", "-U",
+        [sys.executable, "-m", "gmap_gsnap.cli.gmapindex", "-U",
          "-w", "60"], input=mine, capture_output=True, env=env,
         check=True).stdout.decode()
     flat = back.replace("\n", "")

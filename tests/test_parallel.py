@@ -9,9 +9,9 @@ FIXTURE = "/root/reference/tests/ss.chr17test"
 
 @pytest.fixture(scope="module")
 def db():
-    from gmap_gsnap_tpu.align import gsnap_se
-    from gmap_gsnap_tpu.db import build, indexdb
-    from gmap_gsnap_tpu.ops import genome as genome_ops
+    from gmap_gsnap.align import gsnap_se
+    from gmap_gsnap.db import build, indexdb
+    from gmap_gsnap.ops import genome as genome_ops
 
     g = build.load_genome_fasta([FIXTURE])
     genome = genome_ops.GenomeArrays.from_codes(g.codes, g.flags, g.chr_ends)
@@ -24,8 +24,8 @@ def test_sharded_alignment_matches_single_device(db):
     import jax
     import jax.numpy as jnp
 
-    from gmap_gsnap_tpu.align import gsnap_gapped as gg
-    from gmap_gsnap_tpu.parallel import shard
+    from gmap_gsnap.align import gsnap_gapped as gg
+    from gmap_gsnap.parallel import shard
 
     if len(jax.devices()) < 2:
         pytest.skip("needs a multi-device mesh")
@@ -61,7 +61,7 @@ def test_sharded_alignment_matches_single_device(db):
 
 
 def test_pad_batch_and_part(db):
-    from gmap_gsnap_tpu.parallel import shard
+    from gmap_gsnap.parallel import shard
 
     codes = np.zeros((13, 50), np.uint8)
     nflags = np.zeros((13, 50), bool)
@@ -77,7 +77,7 @@ def test_pad_batch_and_part(db):
 def test_sharded_index_lookup(db):
     import jax.numpy as jnp
 
-    from gmap_gsnap_tpu.parallel import shard
+    from gmap_gsnap.parallel import shard
 
     _, index, _ = db
     pos = np.asarray(index.positions)
@@ -112,10 +112,10 @@ def test_sharded_index_seeding_matches_replicated():
     import jax.numpy as jnp
     import numpy as np
 
-    from gmap_gsnap_tpu.align import gsnap_gapped, gsnap_se
-    from gmap_gsnap_tpu.db import build, indexdb
-    from gmap_gsnap_tpu.ops import genome as genome_ops
-    from gmap_gsnap_tpu.parallel import shard
+    from gmap_gsnap.align import gsnap_gapped, gsnap_se
+    from gmap_gsnap.db import build, indexdb
+    from gmap_gsnap.ops import genome as genome_ops
+    from gmap_gsnap.parallel import shard
 
     g = build.load_genome_fasta(["/root/reference/tests/ss.chr17test"])
     genome = genome_ops.GenomeArrays.from_codes(g.codes, g.flags, g.chr_ends)

@@ -44,8 +44,8 @@ def test_pe_resolves_ambiguous_shortend(tmp_path):
         for i in range(0, len(seq), 60):
             f.write(seq[i : i + 60] + "\n")
 
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db import build
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     dbdir = build.build_db([str(fa)], "ambtest", str(tmp_path / "gdb"), k=12)
     maps = pathlib.Path(dbdir) / "ambtest.maps"
@@ -73,7 +73,7 @@ def test_pe_resolves_ambiguous_shortend(tmp_path):
     ).stdout
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     mine = subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gsnap", "-D", gdb,
+        [sys.executable, "-m", "gmap_gsnap.cli.gsnap", "-D", gdb,
          "-d", "ambtest", "-s", "amb", str(fq1), str(fq2)],
         capture_output=True, text=True, env=env, check=True,
     ).stdout

@@ -24,7 +24,7 @@ def _rc(s):
 
 
 def test_trim_ends_batch_matches_scalar():
-    from gmap_gsnap_tpu.align.runner import trim_ends, trim_ends_batch
+    from gmap_gsnap.align.runner import trim_ends, trim_ends_batch
 
     rng = np.random.default_rng(11)
     for L in (20, 75, 100):
@@ -37,8 +37,8 @@ def test_trim_ends_batch_matches_scalar():
 
 
 def test_md_from_positions_matches_md_gapped():
-    from gmap_gsnap_tpu.align.runner import _md_from_positions
-    from gmap_gsnap_tpu.io import sam
+    from gmap_gsnap.align.runner import _md_from_positions
+    from gmap_gsnap.io import sam
 
     rng = np.random.default_rng(5)
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -62,9 +62,9 @@ def _mutate(r, n, rng):
 
 @pytest.fixture(scope="module")
 def runner(tmp_path_factory):
-    from gmap_gsnap_tpu.align import runner as runner_mod
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.db.datadir import GenomeDB
+    from gmap_gsnap.align import runner as runner_mod
+    from gmap_gsnap.db import build
+    from gmap_gsnap.db.datadir import GenomeDB
 
     tmp = tmp_path_factory.mktemp("fastpath_db")
     dbdir = build.build_db([FIXTURE], "chr17test", str(tmp), k=12)
@@ -76,7 +76,7 @@ def test_pe_fast_path_byte_identical(runner):
     """run_pe with the fast path on vs off, on a workload mixing
     strands, mismatch loads (0-6/end incl. end-clustered ones that
     trim), indels, unmapped mates, and quality presence."""
-    from gmap_gsnap_tpu.align.runner import Record
+    from gmap_gsnap.align.runner import Record
 
     seq = _genome_seq()
     rng = np.random.default_rng(23)
@@ -122,7 +122,7 @@ def test_se_fast_path_byte_identical(runner):
     """run() with the SE fast path on vs off: mixed mismatch loads
     (0-3, so the done-level gate routes 2-3-mismatch rows through the
     full-fetch scalar path), strands, indels, unmapped reads."""
-    from gmap_gsnap_tpu.align.runner import Record
+    from gmap_gsnap.align.runner import Record
 
     seq = _genome_seq()
     rng = np.random.default_rng(31)
@@ -161,9 +161,9 @@ def test_pe_fastpath_spliced(tmp_path):
 
     import numpy as np
 
-    from gmap_gsnap_tpu.align import runner as runner_mod
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.db.datadir import GenomeDB
+    from gmap_gsnap.align import runner as runner_mod
+    from gmap_gsnap.db import build
+    from gmap_gsnap.db.datadir import GenomeDB
     import bench_workloads as bw
 
     dbdir = build.build_db(["/root/reference/tests/ss.chr17test"],

@@ -5,11 +5,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from gmap_gsnap_tpu.db import build, indexdb, transforms
-from gmap_gsnap_tpu.db.iit import IIT, Interval
-from gmap_gsnap_tpu.ops import genome as genome_ops
-from gmap_gsnap_tpu.ops import mismatch as mm_ops
-from gmap_gsnap_tpu.utils import dna
+from gmap_gsnap.db import build, indexdb, transforms
+from gmap_gsnap.db.iit import IIT, Interval
+from gmap_gsnap.ops import genome as genome_ops
+from gmap_gsnap.ops import mismatch as mm_ops
+from gmap_gsnap.utils import dna
 
 
 def test_convert_words_matches_scalar():
@@ -27,7 +27,7 @@ def test_convert_words_matches_scalar():
 
 def test_cmet_mode_alignment(ref_tests):
     # a bisulfite-converted read aligns cleanly in cmet mode only
-    from gmap_gsnap_tpu.align import gsnap_se
+    from gmap_gsnap.align import gsnap_se
 
     g = build.load_genome_fasta([str(ref_tests / "ss.chr17test")])
     genome = genome_ops.GenomeArrays.from_codes(g.codes, g.flags, g.chr_ends)
@@ -51,7 +51,7 @@ def test_cmet_mode_alignment(ref_tests):
 
 
 def test_snp_alt_genome_and_tolerance(ref_tests):
-    from gmap_gsnap_tpu.align import gsnap_se
+    from gmap_gsnap.align import gsnap_se
 
     g = build.load_genome_fasta([str(ref_tests / "ss.chr17test")])
     # one SNP at position 5000 (0-based): ref base -> other allele

@@ -46,7 +46,7 @@ TRACK = (
 def _ours(mod: str, stdin: str, *args) -> str:
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     return subprocess.run(
-        [sys.executable, "-m", f"gmap_gsnap_tpu.cli.{mod}", *args],
+        [sys.executable, "-m", f"gmap_gsnap.cli.{mod}", *args],
         input=stdin, capture_output=True, text=True, env=env, check=True,
     ).stdout
 
@@ -103,7 +103,7 @@ def test_gmap_process_parity(tmp_path):
 def test_gmap_build_artifacts(tmp_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.gmap_build", "-d",
+        [sys.executable, "-m", "gmap_gsnap.cli.gmap_build", "-d",
          "chr17test", "-D", str(tmp_path), "-k", "12", FIXTURE],
         capture_output=True, text=True, env=env, check=True,
     )
@@ -149,13 +149,13 @@ def test_get_genome_snp_modes(tmp_path):
     ).upper()
     flip = {"A": "G", "G": "A", "C": "T", "T": "C"}
     pos = 15050  # 1-based SNP inside the first query window
-    from gmap_gsnap_tpu.db.iit_text import iit_from_text
+    from gmap_gsnap.db.iit_text import iit_from_text
 
     iit_from_text(
         f">rs0 chr17test:{pos} {seq[pos - 1]}{flip[seq[pos - 1]]}\n"
     ).write(str(dbdir / "chr17test.maps" / "snps.iit"))
     subprocess.run(
-        [sys.executable, "-m", "gmap_gsnap_tpu.cli.snpindex",
+        [sys.executable, "-m", "gmap_gsnap.cli.snpindex",
          "-D", str(gdb), "-d", "chr17test", "-v", "snps",
          str(dbdir / "chr17test.maps" / "snps.iit")],
         capture_output=True, text=True, env=env, check=True,
@@ -169,7 +169,7 @@ def test_get_genome_snp_modes(tmp_path):
                 capture_output=True, text=True, check=True,
             ).stdout
             mine = subprocess.run(
-                [sys.executable, "-m", "gmap_gsnap_tpu.cli.get_genome",
+                [sys.executable, "-m", "gmap_gsnap.cli.get_genome",
                  "-D", str(gdb), "-d", "chr17test", *opts, q],
                 capture_output=True, text=True, env=env, check=True,
             ).stdout
@@ -183,7 +183,7 @@ def test_stats_module():
 
     import numpy as np
 
-    from gmap_gsnap_tpu.utils import stats
+    from gmap_gsnap.utils import stats
 
     rng = np.random.default_rng(3)
     for n, p in ((10, 0.3), (40, 0.05), (100, 0.7)):
@@ -204,7 +204,7 @@ def test_maxent_string_form():
     chr17test donor/acceptor site."""
     import numpy as np
 
-    from gmap_gsnap_tpu.ops import maxent
+    from gmap_gsnap.ops import maxent
 
     seq = (
         "".join(l.strip() for l in open(FIXTURE) if not l.startswith(">"))

@@ -6,13 +6,13 @@ of Yeo & Burge 2004, as shipped in GMAP's maxent_hr.c); they are extracted
 as *data* so that splice-site probabilities match the reference bit-for-bit.
 
 Run once:  python tools/extract_maxent_tables.py
-Writes:    gmap_gsnap_tpu/data/maxent_hr_tables.npz
+Writes:    gmap_gsnap/data/maxent_hr_tables.npz
 """
 import re
 import numpy as np
 
 SRC = "/root/reference/src/maxent_hr.c"
-OUT = "gmap_gsnap_tpu/data/maxent_hr_tables.npz"
+OUT = "gmap_gsnap/data/maxent_hr_tables.npz"
 
 NAMES = [
     "donor_score_plus", "donor_discore_plus",

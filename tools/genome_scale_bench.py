@@ -22,11 +22,11 @@ sys.path.insert(0, "/root/repo")
 def main():
     import jax
 
-    from gmap_gsnap_tpu.align import gsnap_gapped, gsnap_se
-    from gmap_gsnap_tpu.align import runner as runner_mod
-    from gmap_gsnap_tpu.db import indexdb
-    from gmap_gsnap_tpu.ops import genome as genome_ops
-    from gmap_gsnap_tpu.utils import jaxenv
+    from gmap_gsnap.align import gsnap_gapped, gsnap_se
+    from gmap_gsnap.align import runner as runner_mod
+    from gmap_gsnap.db import indexdb
+    from gmap_gsnap.ops import genome as genome_ops
+    from gmap_gsnap.utils import jaxenv
 
     jaxenv.enable_compilation_cache()
     mbp = int(sys.argv[1]) if len(sys.argv) > 1 else 256
@@ -95,7 +95,7 @@ def main():
           f"({mapped}/{B} mapped)", flush=True)
 
     # end-to-end through the runner (host lanes + SAM emission)
-    from gmap_gsnap_tpu.db.datadir import GenomeDB, LazyGenomeStr
+    from gmap_gsnap.db.datadir import GenomeDB, LazyGenomeStr
 
     db = GenomeDB.__new__(GenomeDB)
     db.codes, db.flags = codes, flags

@@ -10,11 +10,11 @@ sys.path.insert(0, "/root/repo")
 import jax
 import jax.numpy as jnp
 
-from gmap_gsnap_tpu.align import gmap as gmap_mod
-from gmap_gsnap_tpu.align import gmap_engine
-from gmap_gsnap_tpu.db import build
-from gmap_gsnap_tpu.db.datadir import GenomeDB
-from gmap_gsnap_tpu.utils import dna, jaxenv
+from gmap_gsnap.align import gmap as gmap_mod
+from gmap_gsnap.align import gmap_engine
+from gmap_gsnap.db import build
+from gmap_gsnap.db.datadir import GenomeDB
+from gmap_gsnap.utils import dna, jaxenv
 import bench
 
 jaxenv.enable_compilation_cache()

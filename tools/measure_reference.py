@@ -144,14 +144,14 @@ def main():
     if "4" in which or "5" in which:
         rng = np.random.default_rng(11)
         ss_txt, snp_txt, juncs, snps = bw.known_snp_setup(seq, rng)
-        from gmap_gsnap_tpu.db.iit_text import iit_from_text
+        from gmap_gsnap.db.iit_text import iit_from_text
         iit_from_text(ss_txt).write(str(dbdir / "chr17test.maps" / "ss.iit"))
         iit_from_text(snp_txt).write(
             str(dbdir / "chr17test.maps" / "snps.iit"))
 
     if "4" in which:
         subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.snpindex",
+            [sys.executable, "-m", "gmap_gsnap.cli.snpindex",
              "-D", str(gdb), "-d", "chr17test", "-v", "snps",
              str(dbdir / "chr17test.maps" / "snps.iit")],
             capture_output=True, text=True, env=env, check=True)
@@ -164,7 +164,7 @@ def main():
 
     if "5" in which:
         subprocess.run(
-            [sys.executable, "-m", "gmap_gsnap_tpu.cli.cmetindex",
+            [sys.executable, "-m", "gmap_gsnap.cli.cmetindex",
              "-D", str(gdb), "-d", "chr17test"],
             capture_output=True, text=True, env=env, check=True)
         rng = np.random.default_rng(5)

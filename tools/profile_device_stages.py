@@ -18,11 +18,11 @@ sys.path.insert(0, "/root/repo")
 import jax
 import jax.numpy as jnp
 
-from gmap_gsnap_tpu.align import gsnap_gapped as gg
-from gmap_gsnap_tpu.align import gsnap_se as gs
-from gmap_gsnap_tpu.db import build
-from gmap_gsnap_tpu.db.datadir import GenomeDB
-from gmap_gsnap_tpu.utils import jaxenv
+from gmap_gsnap.align import gsnap_gapped as gg
+from gmap_gsnap.align import gsnap_se as gs
+from gmap_gsnap.db import build
+from gmap_gsnap.db.datadir import GenomeDB
+from gmap_gsnap.utils import jaxenv
 
 jaxenv.enable_compilation_cache()
 

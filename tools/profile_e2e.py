@@ -19,10 +19,10 @@ def main():
     which = sys.argv[1] if len(sys.argv) > 1 else "se"
     use_cprofile = "--cprofile" in sys.argv
 
-    from gmap_gsnap_tpu.align import runner as runner_mod
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.db.datadir import GenomeDB
-    from gmap_gsnap_tpu.utils import jaxenv
+    from gmap_gsnap.align import runner as runner_mod
+    from gmap_gsnap.db import build
+    from gmap_gsnap.db.datadir import GenomeDB
+    from gmap_gsnap.utils import jaxenv
     import bench
 
     jaxenv.enable_compilation_cache()
@@ -97,7 +97,7 @@ def main():
             st = pstats.Stats(pr)
             st.sort_stats("cumulative").print_stats(40)
     elif which == "gmap":
-        from gmap_gsnap_tpu.align import gmap as gmap_mod
+        from gmap_gsnap.align import gmap as gmap_mod
         rng = np.random.default_rng(7)
         queries = bench.make_gmap_workload(seq, 64, rng)
         gmap_mod.align_cdna_batch(db, queries)  # warmup

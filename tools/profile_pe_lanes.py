@@ -11,10 +11,10 @@ sys.path.insert(0, "/root/repo")
 
 
 def main():
-    from gmap_gsnap_tpu.align import runner as runner_mod
-    from gmap_gsnap_tpu.db import build
-    from gmap_gsnap_tpu.db.datadir import GenomeDB
-    from gmap_gsnap_tpu.utils import jaxenv
+    from gmap_gsnap.align import runner as runner_mod
+    from gmap_gsnap.db import build
+    from gmap_gsnap.db.datadir import GenomeDB
+    from gmap_gsnap.utils import jaxenv
     import bench
 
     jaxenv.enable_compilation_cache()
